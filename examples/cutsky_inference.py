@@ -13,7 +13,7 @@ The full survey-like workflow (reference `intro/CALA_intro.ipynb` territory):
 
     python examples/cutsky_inference.py            # ~10 min on CPU
 
-Outputs in --save (default /tmp/montecosmo_cutsky): register HDF5 under
+Outputs in --save (default results/cutsky, gitignored): register HDF5 under
 registered/, campaign dir with triangle.png / chains/ under results/.
 """
 import argparse
@@ -50,14 +50,14 @@ def synth_cutsky(out_dir: Path, n_data=20_000, n_random=100_000, seed=0):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--save", default="/tmp/montecosmo_cutsky")
+    ap.add_argument("--save", default="results/cutsky")
     ap.add_argument("--cell-budget", type=float, default=16**3,
                     help="total cells of the final mesh (16^3 quick)")
     ap.add_argument("--n-samples", type=int, default=8)
     ap.add_argument("--platform", default="cpu")
     args = ap.parse_args()
 
-    save = Path(args.save)
+    save = Path(args.save).resolve()
     data, random = synth_cutsky(save / "catalogs")
     print(f"catalogs -> {data.parent}")
 

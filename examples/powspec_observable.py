@@ -22,10 +22,10 @@ REPO = Path(__file__).resolve().parent.parent
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--save", default="/tmp/montecosmo_powspec")
+    ap.add_argument("--save", default="results/powspec")
     ap.add_argument("--n-ptcl", type=int, default=16)
     args = ap.parse_args()
-    save = Path(args.save)
+    save = Path(args.save).resolve()
 
     run = lambda *cmd: subprocess.run(
         [sys.executable, *cmd], cwd=REPO, check=True)

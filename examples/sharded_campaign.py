@@ -1,18 +1,17 @@
 """Worked example 3: a MESH-DECOMPOSED (sharded) inference campaign.
 
-Runs the production spatial decomposition without a TPU pod: the host
-platform is split into 8 virtual XLA CPU devices (the same recipe as
-tests/conftest.py and the driver's dryrun), arranged as a
-(chains x mesh) = (2 x 4) `jax.sharding.Mesh`. `run/infer.py
---spatial-mesh 4` then routes every 3-D FFT through the pencil-FFT
-shard_map islands and the paint through the halo island, with the chain
-axis data-parallel — the exact layout of a v5e-8 campaign
+Runs the production spatial decomposition without a multi-GPU machine: the
+host platform is split into 8 virtual XLA CPU devices (the same recipe as
+tests/conftest.py), arranged as a (chains x mesh) = (2 x 4)
+`jax.sharding.Mesh`. `run/infer.py --spatial-mesh 4` then routes every 3-D
+FFT through the pencil-FFT shard_map islands and the paint through the halo
+island, with the chain axis data-parallel — the layout of an 8-GPU campaign
 (`montecosmo_tpu/parallel/`, SURVEY §2.9).
 
     python examples/sharded_campaign.py            # ~10-15 min on CPU
 
-On a real pod, drop the XLA_FLAGS override and add --distributed for
-multi-process (jax.distributed) operation.
+On GPUs, drop the XLA_FLAGS override and the --platform cpu arguments, and
+add --distributed for multi-process (jax.distributed) operation.
 """
 import argparse
 import os
@@ -25,12 +24,12 @@ REPO = Path(__file__).resolve().parent.parent
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--save", default="/tmp/montecosmo_sharded")
+    ap.add_argument("--save", default="results/sharded")
     ap.add_argument("--spatial-mesh", type=int, default=4,
                     help="devices per chain (spatial decomposition)")
     ap.add_argument("--n-ptcl", type=int, default=16)
     args = ap.parse_args()
-    save = Path(args.save)
+    save = Path(args.save).resolve()
 
     env = dict(os.environ)
     env["XLA_FLAGS"] = (env.get("XLA_FLAGS", "")
@@ -43,8 +42,7 @@ def main():
         # 32^3 final mesh (evolution mesh 56^3): every mesh extent must
         # DIVIDE the spatial mesh (56/4 = 14) or the pencil islands fall
         # back to layouts that trip an XLA:CPU fft-thunk assert at tiny
-        # sizes (upstream bug; TPU backends are unaffected). This is the
-        # round-4 hardware smoke config.
+        # sizes (upstream bug).
         "--cell-budget", str(32**3), "--n-ptcl", str(args.n_ptcl),
         "--box-size", "320", "--init-oversamp", "1.0",
         "--paint-oversamp", "1.0",

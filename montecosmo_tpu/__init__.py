@@ -1,18 +1,18 @@
 """
-montecosmo_tpu — a TPU-native framework for field-level Bayesian inference of
-cosmology from galaxy surveys.
+montecosmo_tpu — a JAX framework for field-level Bayesian inference of
+cosmology from galaxy surveys, run on NVIDIA GPUs.
 
 Functionally equivalent to the reference `hsimonfroy/montecosmo` (differentiable
 LPT / particle-mesh N-body forward model, EFT galaxy bias, RSD/AP, survey
 selection, non-Gaussian field-level likelihoods, MCLMC/NUTS samplers), but
-designed from scratch for TPU hardware:
+rebuilt from scratch:
 
-* every hot kernel is a fused XLA / Pallas pipeline (single-gather Hermitian
-  repack, scan-compiled BullFrog leapfrog, stencil-scan scatter painting),
+* every hot kernel is a fused XLA pipeline (slice-based Hermitian repack,
+  scan-compiled BullFrog leapfrog, stencil-scan scatter painting),
 * the background cosmology (growth / distance tables) is a pure immutable
   pytree traced inside jit, so gradients flow through Omega_m end to end,
 * meshes can be sharded over a `jax.sharding.Mesh` (pencil-decomposed FFT,
-  halo-exchanged painting) for pod-scale boxes, and chains are sharded with
+  halo-exchanged painting) for multi-GPU boxes, and chains are sharded with
   `jax.sharding` rather than pmap.
 
 Subpackages

@@ -5,7 +5,7 @@ quantiles :105-163, interval dispatch :194-210, equal-tail intervals :215-237,
 multivariate sets :240-266, smallest interval :269-342), rebuilt around a
 different core: every estimator is a pure 1-D routine over sorted
 (value, cdf, weight) knots, lifted to batches by vmap with the sample axis
-LAST (TPU lane-major). The 1st-order inverse CDF is a single `jnp.interp`;
+LAST. The 1st-order inverse CDF is a single `jnp.interp`;
 the 2nd-order one uses the Muller ("citardauq") quadratic root, which is
 smooth through zero-curvature segments with no special-casing.
 """

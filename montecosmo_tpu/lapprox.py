@@ -12,12 +12,12 @@ itself:
                materialized (n is large but m ~ tens, so n*m floats),
   * diag(D)  — exact basis probes of the y-Hessian diagonal (chunked hvp),
                or Hutchinson estimates,
-  * Schur    — A minus the MXU contraction C^T (C / diag(D)).
+  * Schur    — A minus the contraction C^T (C / diag(D)).
 
 Functional parity with reference `montecosmo/lapprox.py:4-96`, computed
 differently: the reference assembles B D^-1 B^T from m double-grad
 matvecs; here the cross block is built once and the correction is a single
-(m, n) @ (n, m) matmul — the shape the TPU MXU wants.
+(m, n) @ (n, m) matmul.
 """
 from jax import grad, hessian, jacfwd, linearize, lax, numpy as jnp, \
     random as jr, vmap
@@ -82,9 +82,10 @@ def marginal_covariance(pot_fn, x, y, method="exact", chunk_size=None,
         raise ValueError(f"unknown method {method!r}")
 
     # cross block C = d(grad_y U)/dx, shape (n, m): forward over reverse —
-    # m forward tangents through one reverse pass, then one MXU contraction.
+    # m forward tangents through one reverse pass, then one f32 contraction.
     C = jacfwd(grad(pot_fn, argnums=1), argnums=0)(x, y)
-    correction = C.T @ (C / (d + ridge)[:, None])
+    correction = jnp.dot(C.T, C / (d + ridge)[:, None],
+                         precision=lax.Precision.HIGHEST)
 
     schur = A - correction
     schur = 0.5 * (schur + schur.T)

@@ -2,8 +2,8 @@
 MSEs, the curved-sky mu^2 operator, and chain diagnostics (ESS, Gelman-Rubin).
 
 The spectrum estimator is a `jnp.bincount` reduction over the digitized |k|
-mesh with Hermitian double-count weights — a single segmented reduction on
-TPU.  Bin edges and Legendre weights are numpy constants.
+mesh with Hermitian double-count weights — a single segmented reduction.
+Bin edges and Legendre weights are numpy constants.
 
 Parity: reference `montecosmo/metrics.py` (spectrum/_waves:60-187,
 transfer/coherence/powtranscoh:190-210, bin_and_aggregate + mse_*:214-313,
@@ -180,7 +180,7 @@ def bispectrum(mesh, box_size=None, kedges=None, open_triangles=False,
                los=(0.0, 0.0, 0.0)):
     """FFT-based binned bispectrum monopole (Scoccimarro estimator).
 
-    TPU-native formulation: one shell-filtered inverse FFT per k-bin plus
+    Formulation: one shell-filtered inverse FFT per k-bin plus
     dense elementwise triple products — no mode gathers, no scatters.  For
     every bin triple (i <= j <= l) that can close a triangle,
 

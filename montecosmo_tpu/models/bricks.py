@@ -312,7 +312,7 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, png,
         # ---- memory-bounded form: each operator group is its own remat
         # block, so the transpose frees one group's FFT workspaces before
         # recomputing the next (a single fused block schedules ~10 big-mesh
-        # FFTs concurrently and blows HBM at 448^3 — BENCH_NOTES round 3);
+        # FFTs concurrently, whose workspaces are live at once);
         # reads at lattice sites are strided slices, so per-group reads cost
         # nothing extra over the fused row-gather of the general path.
         import jax as _jax
@@ -345,8 +345,7 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, png,
 
     else:
         # ---- build every operator FIELD, then gather them all at the
-        # particle positions with ONE fused row-gather (TPU: C fused reads
-        # cost ~1 read)
+        # particle positions with ONE fused row-gather
         kmesh = sum(ki**2 for ki in kvec) ** 0.5
         delta = irfftn(lin_mesh)
         shear2, shear3 = shear_fields(lin_mesh, shear_comp)
@@ -518,8 +517,7 @@ def regular_pos(mesh_shape: tuple, ptcl_shape: tuple = None):
     than mesh_shape).
 
     Built from traced iotas, NOT a numpy constant: a 224^3 lattice embedded as
-    a literal is a ~135 MB serialized program (and the TPU compile service
-    rejects oversized programs)."""
+    a literal would make a ~135 MB serialized program."""
     if ptcl_shape is None:
         ptcl_shape = mesh_shape
     axes = [jnp.arange(p, dtype=jnp.float32) * jnp.float32(m / p)
@@ -548,29 +546,37 @@ def sobol_pos(mesh_shape: tuple, ptcl_shape: tuple = None, seed=42):
                        jnp.float32)
 
 
+def rotate(rot: Rotation, x, inverse=False):
+    """`rot.apply(x, inverse)` as one explicit full-precision dot, so that
+    positions are never rotated in reduced precision (TF32 on GPUs)."""
+    m = rot.as_matrix()
+    return jnp.einsum("ij,...j->...i", m.T if inverse else m, x,
+                      precision=lax.Precision.HIGHEST)
+
+
 def cell2phys_pos(pos, box_center, box_rot: Rotation, box_size, mesh_shape):
     """Cell positions -> physical positions (box center + rotation applied)."""
     pos = pos * np.divide(box_size, mesh_shape).astype(pos.dtype)
     pos = pos - np.asarray(box_size, pos.dtype) / 2
-    pos = box_rot.apply(pos)
+    pos = rotate(box_rot, pos)
     return pos + jnp.asarray(box_center, pos.dtype)
 
 
 def phys2cell_pos(pos, box_center, box_rot: Rotation, box_size, mesh_shape):
     """Physical positions -> cell positions."""
     pos = pos - jnp.asarray(box_center, pos.dtype)
-    pos = box_rot.apply(pos, inverse=True)
+    pos = rotate(box_rot, pos, inverse=True)
     pos = pos + np.asarray(box_size, pos.dtype) / 2
     return pos / np.divide(box_size, mesh_shape).astype(pos.dtype)
 
 
 def cell2phys_vel(vel, box_rot: Rotation, box_size, mesh_shape):
     vel = vel * np.divide(box_size, mesh_shape).astype(vel.dtype)
-    return box_rot.apply(vel)
+    return rotate(box_rot, vel)
 
 
 def phys2cell_vel(vel, box_rot: Rotation, box_size, mesh_shape):
-    vel = box_rot.apply(vel, inverse=True)
+    vel = rotate(box_rot, vel, inverse=True)
     return vel / np.divide(box_size, mesh_shape).astype(vel.dtype)
 
 
@@ -586,7 +592,7 @@ def radius_mesh(box_center, box_rot: Rotation, box_size, mesh_shape, curved_sky=
         shape[ax] = -1
         rvec.append(np.arange(m).reshape(shape))
 
-    box_center = box_rot.apply(jnp.asarray(box_center, float), inverse=True)
+    box_center = rotate(box_rot, jnp.asarray(box_center, float), inverse=True)
     if curved_sky:
         rvec = [r * b / m - b / 2 + c
                 for r, m, b, c in zip(rvec, mesh_shape, box_size, box_center)]
@@ -809,7 +815,7 @@ def gen_gauss_selection(box_center, box_rot, box_size, mesh_shape, curved_sky,
             r_scale = np.min(box_size) / 4
         else:
             los = safe_div(np.asarray(box_center, float), np.linalg.norm(box_center))
-            los = box_rot.apply(los, inverse=True)
+            los = rotate(box_rot, los, inverse=True)
             r_scale = np.asarray(box_size) @ jnp.abs(los) / 4
 
     selec = jnp.exp(-jnp.abs((rmesh - r_loc) / r_scale) ** order)
@@ -905,8 +911,8 @@ def fullsky2count(data, bg: Background, a_obs: float, los,
     chunks = [data] if isinstance(data, dict) else data
     n_tracers = 0.0
 
-    # every complex op lives inside jit: the TPU runtime has no eager complex
-    # path, so chunks accumulate as (real, imag) float pairs on the host loop
+    # every complex op lives inside jit; chunks accumulate as (real, imag)
+    # float pairs on the host loop
     @jax.jit
     def paint_chunk(pos, weights):
         pos = phys2cell_pos(pos, box_center, box_rot, box_size, final_shape)
@@ -944,13 +950,12 @@ def set_radial_count(mesh, rmesh, redges, rcounts):
 
     Parity: bricks.py:1106-1122.
 
-    TPU-native formulation (round 5): a piecewise-constant lookup — per-cell
-    index arithmetic on the CONCRETE bin edges + one (n_bins,)-row gather of
-    the traced counts. The previous per-bin `lax.scan` saved an
-    (n_bins, mesh) carry stack AND a same-sized mask stack for the backward
-    pass: 330 bins x local 512^3 slab ~ 14 GB/device at n=16 — the bulk of
-    the BASELINE row-5 replicated-memory tail. The gather transpose is a
-    segment-sum into the tiny (n_bins,) table.
+    Formulation: a piecewise-constant lookup — per-cell index arithmetic on
+    the CONCRETE bin edges + one (n_bins,)-row gather of the traced counts.
+    A per-bin `lax.scan` would save an (n_bins, mesh) carry stack AND a
+    same-sized mask stack for the backward pass (330 bins x a local 512^3
+    slab). The gather transpose is a segment-sum into the tiny (n_bins,)
+    table.
     """
     redges = np.asarray(redges, np.float64)
     rcounts = jnp.asarray(rcounts)
@@ -958,9 +963,7 @@ def set_radial_count(mesh, rmesh, redges, rcounts):
     assert len(redges) == n_bins + 1
     if n_bins <= 4:
         # few bins (the default synthetic/flat-sky configs have 1): a chain
-        # of fused selects costs nothing, while the per-cell table gather
-        # below pays the ~8 ns/element gather wall (measured: bench 128^3
-        # 0.92 -> 0.81 evals/s when the lookup ran with n_bins = 1)
+        # of fused selects instead of the per-cell table gather below
         out = mesh
         for b in range(n_bins):
             rmask = (redges[b] < rmesh) & (rmesh <= redges[b + 1])

@@ -289,7 +289,7 @@ class SinhArcsinh(Distribution):
         return jnp.sinh(self.tailweight * (jnp.arcsinh(eps) + self.skewness))
 
     def _g_mean_std(self):
-        """First two moments of g(eps), quadrature axis trailing (TPU lanes)."""
+        """First two moments of g(eps), quadrature axis trailing."""
         z, w = _std_normal_quadrature(self.QUAD_DEG)
         t = jnp.asarray(self.tailweight)[..., None]
         s = jnp.asarray(self.skewness)[..., None]
@@ -430,7 +430,7 @@ class TwoQuadGaussian(Distribution):
     Structured as a finite normal MIXTURE: conditioning on eps2 = z gives
     obs | z ~ N(loc + scale2 (z^2 - 1), scale1); marginalizing with a fixed
     Gauss-Hermite rule yields sum_i w_i N(mu_i, scale1) — log_prob/log_cdf are
-    then one logsumexp over the trailing (TPU-lane) component axis.
+    then one logsumexp over the trailing component axis.
     """
 
     def __init__(self, loc=0.0, scale1=1.0, scale2=0.0, n_quad=64):
@@ -706,7 +706,8 @@ class BlockMultivariateNormal(Distribution):
 
     def sample(self, key, sample_shape=()):
         eps = jr.normal(key, sample_shape + self.batch_shape)  # (..., D, B)
-        corr = jnp.einsum("bij,...jb->...ib", self.scale_tril, eps)
+        corr = jnp.einsum("bij,...jb->...ib", self.scale_tril, eps,
+                          precision=lax.Precision.HIGHEST)
         return self.loc + corr
 
     def log_prob(self, value):

@@ -5,10 +5,9 @@ tensor distributed exactly like `rfftn` of a white-noise field; `cgh2rg` is its
 inverse.  This is how the initial-density latent is sampled in unconstrained
 N(0,1) coordinates while the model consumes Fourier coefficients.
 
-TPU-native design: the whole bijection is ONE gather with numpy-precomputed
-flat indices and weights (cached per shape), instead of a sequence of ~30
-dynamic-update-slices over faces/edges/vertices.  A single gather lowers to
-one fused HBM pass; the index tensors are compile-time constants.
+Design: the bijection is built from static slices, flips and concatenations
+with numpy-precomputed weights (cached per shape), instead of a sequence of
+~30 dynamic-update-slices over faces/edges/vertices.
 
 Math (even dims, rfft layout (Nx,Ny,Nz/2+1), backward FFT convention):
   * bulk 0<kz<Hz : free complex modes; Re <- in[:,:,1:Hz], Im <- in[:,:,Hz+1:].
@@ -215,9 +214,8 @@ def rg2cgh(mesh, norm="backward"):
     `rg2cgh(mean + amp * N(0,I), norm)` is distributed as
     `meank + ampk * rfftn(N(0,I), norm)`.
 
-    TPU-native: the permutation is composed entirely of static slices, flips
-    and concatenations (contiguous HBM copies) — arbitrary-index gathers are
-    pathologically slow on TPU.
+    The permutation is composed entirely of static slices, flips and
+    concatenations (contiguous copies, no arbitrary-index gathers).
 
     norm='amp' returns the RMS amplitude of the (real, imag) source pair —
     used to transport per-mode std fields into the real packing.
@@ -247,8 +245,6 @@ def rg2cgh(mesh, norm="backward"):
         im_amp = jnp.where(im == 0, re, im)
         return constrain_mesh(((re**2 + im_amp**2) / 2) ** 0.5, "pencil")
     w = _base_weight(shape, norm)
-    # lax.complex rather than 1j-multiply: the eager 1j promotion hits an
-    # unimplemented convert_element_type on the TPU runtime
     return constrain_mesh(jax.lax.complex(re * w, im * w), "pencil")
 
 

@@ -1,14 +1,12 @@
 """Uniform-grid linear interpolation: index arithmetic instead of searchsorted.
 
 `jnp.interp` binary-searches the node table per query — ~log2(n) dependent
-random gathers per element, latency-bound on TPU (~9 round trips for 256
-nodes).  All the framework's tables are (or can be resampled to) UNIFORM
+random gathers per element (~9 for 256 nodes).  All the framework's tables are (or can be resampled to) UNIFORM
 grids in x or log x, where the bracketing index is one multiply:
 
     i = floor((x - x0) / dx)
 
-followed by a single 2-wide row gather for the (y_i, y_{i+1}) pair.  At a
-96^3 half-mesh this is ~10x cheaper than jnp.interp.
+followed by a single 2-wide row gather for the (y_i, y_{i+1}) pair.
 
 Parity: replaces jnp.interp call sites (reference uses jnp.interp /
 interpax; montecosmo/bricks.py:108-157).
@@ -41,8 +39,8 @@ def uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False,
     # shape-preserving gathers: flattening the query mesh (reshape(-1))
     # merges its sharded dim into an unpartitionable reshape under a mesh
     # context — GSPMD then all-gathers the FULL rfft-sized mesh on every
-    # device (measured: 45 MiB c64[224,224,113] all-gathers at 128^3/n=8,
-    # BENCH_NOTES round 4)
+    # device (measured: 45 MiB c64[224,224,113] all-gathers at 128^3/n=8
+    # on virtual CPU devices)
     trail = ytab.ndim - 1
     pairs = jnp.stack([ytab[:-1], ytab[1:]], axis=1)     # (n-1, 2, ...)
     lohi = jnp.take(pairs, i, axis=0)                    # i.shape + (2, ...)

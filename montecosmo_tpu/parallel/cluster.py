@@ -1,21 +1,22 @@
-"""Multi-process (pod-scale) runtime: jax.distributed init + global meshes.
+"""Multi-process runtime: jax.distributed init + global meshes.
 
 Closes the reference's acknowledged multi-host TODO
 (`run/script_pipe_fpm.py:413,417` — its multi-node story was independent
-SLURM jobs): here one logical device mesh spans every process of a TPU pod
-(or a multi-host CPU test cluster), with the 'chains' axis laid out across
-DCN (slices/hosts, data parallel — no mesh collectives cross it) and the
-'mesh' axis within a slice so pencil-FFT `all_to_all` and halo `ppermute`
-ride ICI.
+SLURM jobs): here one logical device mesh spans every process of a
+multi-node GPU job (or a multi-process CPU test cluster), with the 'chains'
+axis varying slowest across the device list (data parallel — no mesh
+collectives cross it) and the 'mesh' axis within a host, so pencil-FFT
+`all_to_all` and halo `ppermute` stay on the host's own interconnect.
 
-Typical pod entry:
+Typical entry:
 
     from montecosmo_tpu.parallel import cluster
-    cluster.init_distributed()              # auto-detects TPU pod topology
-    mesh = cluster.pod_mesh(n_chains=4)     # chains over DCN, space over ICI
+    cluster.init_distributed(coordinator_address="host0:1234",
+                             num_processes=4, process_id=rank)
+    mesh = cluster.pod_mesh(n_chains=4)     # chains across hosts
 
-On CPU test clusters pass coordinator/num_processes/process_id explicitly
-(collectives go through gloo; see tests/test_distributed.py).
+Collectives on CPU test clusters go through gloo (see
+tests/test_distributed.py).
 """
 import numpy as np
 import jax
@@ -28,8 +29,9 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None, local_device_ids=None):
     """Initialize the multi-process JAX runtime (idempotent).
 
-    On TPU pods all arguments are auto-detected from the environment; on CPU
-    clusters pass them explicitly. Must run before any backend initializes.
+    Pass the coordinator address, process count and process id explicitly
+    unless the cluster environment (e.g. SLURM) lets jax.distributed detect
+    them. Must run before any backend initializes.
     Returns (process_id, num_processes).
     """
     from jax._src import distributed as _dist
@@ -59,10 +61,8 @@ def pod_mesh(n_chains=None, n_mesh=None, devices=None) -> Mesh:
     """Global ('chains', 'mesh') device mesh over every process's devices.
 
     The 'chains' axis varies slowest across the global device list, so with
-    the standard pod enumeration (devices grouped by process/slice) chains
-    land on distinct hosts/slices (DCN) and the spatial 'mesh' axis stays
-    within a slice (ICI). On multi-slice TPU environments the hybrid mesh
-    helper enforces that layout exactly.
+    devices enumerated process by process, chains land on distinct hosts
+    and the spatial 'mesh' axis stays within a host.
     """
     devices = list(jax.devices()) if devices is None else list(devices)
     n = len(devices)
@@ -75,14 +75,6 @@ def pod_mesh(n_chains=None, n_mesh=None, devices=None) -> Mesh:
     if n_chains * n_mesh != n:
         raise ValueError(f"{n_chains} chains x {n_mesh} mesh != {n} devices")
 
-    n_slices = len({getattr(d, "slice_index", 0) for d in devices})
-    if n_slices > 1 and n_chains % n_slices == 0:
-        from jax.experimental import mesh_utils
-
-        arr = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape=(n_chains // n_slices, n_mesh),
-            dcn_mesh_shape=(n_slices, 1), devices=devices)
-        return Mesh(arr, ("chains", "mesh"))
     return Mesh(np.asarray(devices).reshape(n_chains, n_mesh),
                 ("chains", "mesh"))
 

@@ -3,7 +3,7 @@
 `mesh_context(mesh)` activates spatial decomposition for the ops layer
 without touching model code: inside the context, `ops.fourier.rfftn/irfftn`
 on 3-D meshes route through the pencil shard_map islands (local FFTs + one
-all_to_all over ICI, global-array in/out semantics), while every other op is
+all_to_all between devices, global-array in/out semantics), while every other op is
 partitioned by GSPMD from the island shardings — slices/flips/concats
 (Hermitian repack, chreshape), the lattice-window paint matmuls and
 overlap-add rolls, elementwise physics, reductions. This gives EXACT
@@ -17,8 +17,8 @@ code, only the FFT implementation is swapped.
 The context is consulted at TRACE time (a contextvar), so keep the jit call
 inside the `with` block. Nesting restores the previous context.
 
-Closes VERDICT round-1 weak #4: the pod-scale path no longer covers only
-the flat-sky subset — `FieldLevelModel.logpdf` itself shards.
+The multi-device path thus covers the full model, not a flat-sky subset —
+`FieldLevelModel.logpdf` itself shards.
 """
 from contextlib import contextmanager
 from contextvars import ContextVar
@@ -52,7 +52,7 @@ def constrain_mesh(x, layout="slab"):
                      layout.
     GSPMD left alone replicates the repack/resample segments between FFT
     islands (measured: full-size 448^3 rfft meshes on every device at 256^3
-    — BENCH_NOTES round 3); pinning the segment endpoints makes it partition
+    on virtual CPU devices); pinning the segment endpoints makes it partition
     them.
     """
     ctx = _ACTIVE.get()

@@ -3,7 +3,7 @@
 The keystone absent from the reference (its acknowledged TODO at
 `run/script_pipe_fpm.py:413,417`): one mesh never spans devices there.  Here a
 3D rfftn over an X-sharded mesh costs two local 1D FFT passes and ONE
-`all_to_all` transpose over ICI:
+`all_to_all` transpose between devices:
 
     input  layout: X-sharded   (X/P, Y, Z)      real
     1. local rfft over Z, fft over Y            (X/P, Y, Hz+1) complex

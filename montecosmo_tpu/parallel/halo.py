@@ -2,7 +2,7 @@
 
 Each device owns an X-slab of the mesh and the particles whose base cell
 falls inside it.  Painting accumulates into a locally extended buffer
-(slab + halo faces on both sides); the faces then ride ICI to the neighbor
+(slab + halo faces on both sides); the faces then go to the neighbor
 slabs via two `ppermute`s and are added in.  Reading mirrors this: fetch the
 neighbors' edge planes first, gather locally.
 
@@ -167,9 +167,9 @@ def halo_paint_window_local(pos, shape, lattice_shape, weights=1.0, order=2,
                             group=(None, None, None), batch_size=8, clip=True,
                             precision=None):
     """Scatter-free halo painting: the slab's lattice-ordered particles are
-    painted into the extended local buffer with per-group MXU matmuls
-    (`ops.paint_window` formulation), then the halo faces ride ICI exactly
-    like `halo_paint_local`.
+    painted into the extended local buffer with per-group matmuls
+    (`ops.paint_window` formulation), then the halo faces are exchanged
+    exactly like `halo_paint_local`.
 
     pos           : (n_local, 3) GLOBAL cell coords of the owned particles,
                     locally lattice-ordered (reshapeable to the local lattice

@@ -2,8 +2,8 @@
 
 The reference's only distribution primitive is `pmap` over chains
 (`montecosmo/script.py:13-20`).  Here distribution is first-class:
-a `jax.sharding.Mesh` with a 'chains' axis (data parallel over DCN/ICI) and a
-'mesh' axis (spatial mesh decomposition over ICI) — the layout the sharded
+a `jax.sharding.Mesh` with a 'chains' axis (data parallel) and a 'mesh' axis
+(spatial mesh decomposition) — the layout the sharded
 FFT and halo painting ride on.
 """
 import numpy as np

@@ -7,7 +7,6 @@ per-run sample dumps all go through these.
 import pickle
 
 import numpy as np
-import yaml
 
 
 # ----------------------------------------------------------------------------- pickle
@@ -22,49 +21,31 @@ def pload(path):
 
 
 # ----------------------------------------------------------------------------- yaml
-def _np_array_representer(dumper, data):
-    return dumper.represent_list(data.tolist())
+def _yaml():
+    """PyYAML, imported on first use so that `import montecosmo_tpu` does not
+    need it; numpy arrays and scalars dump as plain lists and numbers."""
+    import yaml
 
-
-def _np_scalar_representer(dumper, data):
-    return dumper.represent_data(data.item())
-
-
-yaml.SafeDumper.add_representer(np.ndarray, _np_array_representer)
-yaml.SafeDumper.add_multi_representer(np.generic, _np_scalar_representer)
+    yaml.SafeDumper.add_representer(
+        np.ndarray, lambda dumper, data: dumper.represent_list(data.tolist()))
+    yaml.SafeDumper.add_multi_representer(
+        np.generic, lambda dumper, data: dumper.represent_data(data.item()))
+    return yaml
 
 
 def ysave(obj, path):
     with open(path, "w") as f:
-        yaml.safe_dump(obj, f)
+        _yaml().safe_dump(obj, f)
 
 
 def yload(path):
     with open(path, "r") as f:
-        return yaml.safe_load(f)
+        return _yaml().safe_load(f)
 
 
 def to_np(x):
-    """Device array -> numpy, transferring complex arrays as separate
-    real/imag parts (the TPU runtime cannot transfer complex buffers
-    directly)."""
-    if hasattr(x, "dtype") and np.issubdtype(x.dtype, np.complexfloating):
-        return np.asarray(x.real) + 1j * np.asarray(x.imag)
+    """Device array -> numpy."""
     return np.asarray(x)
-
-
-def to_jnp(x):
-    """Host array -> device, uploading complex arrays as separate real/imag
-    parts combined under jit (complex host->device transfers are
-    UNIMPLEMENTED on the TPU runtime, mirroring `to_np`)."""
-    import jax
-    from jax import numpy as jnp
-
-    x = np.asarray(x)
-    if np.issubdtype(x.dtype, np.complexfloating):
-        return jax.jit(lambda r, i: r + 1j * i)(
-            np.ascontiguousarray(x.real), np.ascontiguousarray(x.imag))
-    return jnp.asarray(x)
 
 
 # ----------------------------------------------------------------------------- hdf5

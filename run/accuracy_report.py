@@ -4,11 +4,14 @@ integrators, resolutions, and precisions (roadmap item 5).
 Compares, at matched white-noise seeds:
   1. BullFrog N-body (10 steps) vs 2LPT        — integrator systematic
   2. evol_oversamp 1.75 vs 2.25                — resolution convergence
-  3. float32 vs float64                        — precision floor (subprocess
-                                                 with x64, CPU only)
+  3. float32 vs float64                        — precision floor (a child
+                                                 process with x64, on the CPU
+                                                 so that it never shares the
+                                                 card with this process)
 
-Run: python run/accuracy_report.py [--final 32] [--platform cpu]
-Writes a text report to stdout; numbers land in BENCH_NOTES.md.
+Run (from the repository root): python run/accuracy_report.py [--final 32]
+[--platform cpu|cuda].  Writes a text report to stdout; the shared white
+noise and the f64 field go to results/accuracy/ (gitignored).
 """
 import argparse
 import json
@@ -19,6 +22,9 @@ from pathlib import Path
 import numpy as np
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+OUT = Path("results/accuracy")
+WHITE_NPY, F64_NPY = OUT / "white.npy", OUT / "gxy_f64.npy"
 
 
 def gxy_and_ptc(final, evolution, evol_oversamp, seed=0, n_steps=10,
@@ -42,7 +48,8 @@ def gxy_and_ptc(final, evolution, evol_oversamp, seed=0, n_steps=10,
         params["white_mesh_"] = jnp.asarray(np.load(white_npy))
     else:
         w = jr.normal(jr.key(seed), m.init_shape)
-        np.save("/tmp/acc_white.npy", np.asarray(w, np.float32))
+        OUT.mkdir(parents=True, exist_ok=True)
+        np.save(WHITE_NPY, np.asarray(w, np.float32))
         params["white_mesh_"] = w
     pred = m.predict(seed=seed + 1, samples=params, hide_base=False,
                      hide_det=False, hide_samp=False)
@@ -76,9 +83,8 @@ def main():
 
     if args.f64_child:
         # SAME f32 white-noise realization (x64 RNG draws different bits)
-        g, m = gxy_and_ptc(args.final, "lpt", 1.75,
-                           white_npy="/tmp/acc_white.npy")
-        np.save("/tmp/acc_f64.npy", g.astype(np.float64))
+        g, m = gxy_and_ptc(args.final, "lpt", 1.75, white_npy=WHITE_NPY)
+        np.save(F64_NPY, g.astype(np.float64))
         return
 
     final = args.final
@@ -125,18 +131,18 @@ def main():
     print(f"   transfer range [{t[sel].min():.4f}, {t[sel].max():.4f}], "
           f"coherence min {c[sel].min():.5f}")
 
-    # f64 child process (clean x64 config)
+    # f64 child process (clean x64 config) on the CPU: this process already
+    # holds the card when --platform is the GPU
     r = subprocess.run([sys.executable, __file__, "--final", str(final),
-                        "--platform", args.platform, "--f64-child"],
+                        "--platform", "cpu", "--f64-child"],
                        capture_output=True, text=True)
-    if r.returncode == 0:
-        g64 = np.load("/tmp/acc_f64.npy")
-        k, t, c = ptc(g_lpt.astype(np.float64), g64, box)
-        print("3. float32 vs float64 (2LPT):")
-        print(f"   transfer within {np.abs(t[sel] - 1).max():.2e} of 1, "
-              f"coherence min {c[sel].min():.8f}")
-    else:
-        print("3. f64 child failed:", r.stderr[-200:])
+    if r.returncode != 0:
+        raise RuntimeError(f"f64 child failed: {r.stderr[-2000:]}")
+    g64 = np.load(F64_NPY)
+    k, t, c = ptc(g_lpt.astype(np.float64), g64, box)
+    print("3. float32 vs float64 (2LPT):")
+    print(f"   transfer within {np.abs(t[sel] - 1).max():.2e} of 1, "
+          f"coherence min {c[sel].min():.8f}")
 
 
 if __name__ == "__main__":

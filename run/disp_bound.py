@@ -3,12 +3,11 @@
 The window-matmul paint sizes its per-group margin from a blanket
 45 Mpc/h displacement bound (bench.py, model max_disp) — at 256^3 in a
 1 Gpc/h box that is md = 12 cells, inflating every window pass by
-~(1 + 2 md/gs)^3 (BENCH_NOTES round-4 roofline names this a candidate for
-the unattributed 2.5-5x residual). This probe runs the north-star forward
+~(1 + 2 md/gs)^3. This probe runs the north-star forward
 evolution and prints the MEASURED |displacement| distribution, so the
 margin can be set from physics + safety factor instead of the blanket.
 
-Run (CPU fine — the bound is resolution-independent in Mpc/h):
+Run (the bound is resolution-independent in Mpc/h, so the CPU will do):
   python run/disp_bound.py [mesh=128] [box=1000] [n_steps=10] [--platform cpu]
 """
 import sys

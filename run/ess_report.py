@@ -68,7 +68,8 @@ def main():
         # frozen-chain guard: a per-chain sd orders of magnitude below the
         # cross-chain spread means the sampler barely moved (ESS ~ n_chains
         # then measures chain COUNT, not mixing) — seen when the MCLMC
-        # tuner collapsed the step size (BENCH_NOTES f32 noise post-mortem)
+        # tuner collapsed the step size (f32 logpdf noise, see
+        # FieldLevelModel.recenter_logpdf)
         within = x.std(axis=1).mean()
         between = x.mean(axis=1).std() + 1e-30
         if x.shape[0] > 1 and within < 1e-3 * between:

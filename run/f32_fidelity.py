@@ -1,17 +1,17 @@
-"""f32 vs f64 fidelity of the flagship field-level model (VERDICT r4 next#6).
+"""f32 vs f64 fidelity of the flagship field-level model.
 
 The reference runs float64 everywhere (`/root/reference/run/infer.py:76`);
-this framework runs float32 on TPU. This script quantifies what that costs:
+this framework runs float32. This script quantifies what that costs:
 same 64^3 flagship config (2LPT + Lagrangian bias + RSD, quad-Gaussian
 likelihood), same white-noise realization, computed once in f32 and once in
 f64 (x64-enabled process), both on CPU so the ONLY difference is precision.
 
-Usage:
-  python run/f32_fidelity.py run  --x64 0 --out /tmp/fid32.npz [--final 64]
-  python run/f32_fidelity.py run  --x64 1 --out /tmp/fid64.npz [--final 64]
-  python run/f32_fidelity.py compare /tmp/fid32.npz /tmp/fid64.npz
+Usage (from the repository root; outputs under results/, which git ignores):
+  python run/f32_fidelity.py run  --x64 0 --out results/fid32.npz [--final 64]
+  python run/f32_fidelity.py run  --x64 1 --out results/fid64.npz [--final 64]
+  python run/f32_fidelity.py compare results/fid32.npz results/fid64.npz
 
-Reported (table committed in BENCH_NOTES.md):
+Reported:
   * fiducial joint logpdf absolute + relative delta (and vs the recentred
     zero-point, the quantity campaigns actually consume);
   * gradient cosine similarity + relative L2 error (the MCLMC/NUTS drift);
@@ -63,6 +63,7 @@ def run(args):
     # ONE observation shared bit-for-bit across both runs: the f32 process
     # writes the cache; the f64 process reuses it.
     obs_cache = Path(args.obs_cache)
+    obs_cache.parent.mkdir(parents=True, exist_ok=True)
     if obs_cache.exists():
         count = np.load(obs_cache)
     else:
@@ -120,7 +121,7 @@ if __name__ == "__main__":
     r.add_argument("--x64", type=int, default=0)
     r.add_argument("--out", required=True)
     r.add_argument("--final", type=int, default=64)
-    r.add_argument("--obs-cache", default="/tmp/fid_obs.npy")
+    r.add_argument("--obs-cache", default="results/fid_obs.npy")
     c = sub.add_parser("compare")
     c.add_argument("a")
     c.add_argument("b")

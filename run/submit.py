@@ -1,17 +1,15 @@
-"""Job submission for inference campaigns: SLURM, Cloud TPU pods, or local.
+"""Job submission for inference campaigns: SLURM or a local queue.
 
 The reference ships a commented-out desipipe/NERSC TaskManager block
 (`/root/reference/run/infer.py:20-41`) for submitting `infer` as SLURM GPU
-jobs.  The TPU-native equivalent targets three launchers:
+jobs.  Two launchers:
 
-  slurm : generate + `sbatch` a job script (TPU or any accelerator
-          partition); multi-node jobs start one process per node and rely
-          on `run/infer.py --distributed` (jax.distributed) to form the pod.
-  tpuvm : emit the `gcloud compute tpus tpu-vm ssh --worker=all` command
-          that launches the same process-per-host campaign on a Cloud TPU
-          pod slice.
-  local : append to a serialized local queue (one TPU process at a time —
-          concurrent processes wedge single-chip runtimes; see CLAUDE.md).
+  slurm : generate + `sbatch` a job script (any GPU partition); multi-node
+          jobs start one process per node and rely on
+          `run/infer.py --distributed` (jax.distributed) to form the cluster.
+  local : append to a serialized local queue (one job at a time: a JAX
+          process reserves most of a card's memory, so two jobs on one card
+          fail).
 
 Script generation is pure text (hermetically tested); submission shells out
 only when the scheduler binary exists.
@@ -19,8 +17,6 @@ only when the scheduler binary exists.
 Usage:
   python run/submit.py --scheduler slurm --time 04:00:00 --nodes 1 -- \
       python run/infer.py --register registered/reg.h5 --self-data
-  python run/submit.py --scheduler tpuvm --tpu my-pod --zone us-central2-b -- \
-      python run/infer.py --register registered/reg.h5 --distributed
 """
 import argparse
 import os
@@ -67,21 +63,6 @@ def make_slurm_script(cmd, *, job_name="montecosmo", time="04:00:00",
     return "\n".join(lines)
 
 
-def make_tpuvm_command(cmd, *, tpu, zone, project=None, workdir=None,
-                       env_setup=""):
-    """The gcloud one-liner that runs `cmd` on EVERY host of a TPU pod
-    slice (process-per-host; jax.distributed auto-detects the topology)."""
-    inner = " && ".join(
-        x for x in (f"cd {shlex.quote(str(workdir))}" if workdir else "",
-                    env_setup,
-                    " ".join(shlex.quote(c) for c in cmd)) if x)
-    out = ["gcloud", "compute", "tpus", "tpu-vm", "ssh", tpu,
-           f"--zone={zone}", "--worker=all", f"--command={inner}"]
-    if project:
-        out.insert(5, f"--project={project}")
-    return out
-
-
 def submit_local(cmd, queue_file):
     """Append to the serialized local queue (consumed by `run_local_queue`).
     One line per job; `#` comments and blank lines are skipped."""
@@ -120,7 +101,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--scheduler", default="slurm",
-                    choices=["slurm", "tpuvm", "local"])
+                    choices=["slurm", "local"])
     ap.add_argument("--job-name", default="montecosmo")
     ap.add_argument("--time", default="04:00:00")
     ap.add_argument("--nodes", type=int, default=1)
@@ -133,9 +114,6 @@ def main(argv=None):
                     help="shell line(s) run before the command (module "
                          "loads, venv activation)")
     ap.add_argument("--workdir", default=None)
-    ap.add_argument("--tpu", default=None, help="TPU pod slice name (tpuvm)")
-    ap.add_argument("--zone", default=None, help="GCP zone (tpuvm)")
-    ap.add_argument("--project", default=None, help="GCP project (tpuvm)")
     ap.add_argument("--queue-file", default="outs/local_queue.txt")
     ap.add_argument("--dry-run", action="store_true",
                     help="print the script/command without submitting")
@@ -163,21 +141,6 @@ def main(argv=None):
                   file=sys.stderr)
             return 1
         return subprocess.call(["sbatch", str(path)])
-
-    if args.scheduler == "tpuvm":
-        if not (args.tpu and args.zone):
-            ap.error("tpuvm needs --tpu and --zone")
-        gcmd = make_tpuvm_command(cmd, tpu=args.tpu, zone=args.zone,
-                                  project=args.project, workdir=args.workdir,
-                                  env_setup=args.env_setup)
-        if args.dry_run:
-            print(" ".join(shlex.quote(c) for c in gcmd))
-            return 0
-        if shutil.which("gcloud") is None:
-            print("gcloud not found; command printed above", file=sys.stderr)
-            print(" ".join(shlex.quote(c) for c in gcmd))
-            return 1
-        return subprocess.call(gcmd)
 
     qf = submit_local(cmd, args.queue_file)
     print(f"queued in {qf}")

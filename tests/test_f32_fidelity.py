@@ -1,6 +1,6 @@
-"""f32-vs-f64 fidelity regression (VERDICT r4 next#6, table in BENCH_NOTES).
+"""f32-vs-f64 fidelity regression.
 
-The framework runs float32 on TPU where the reference runs float64
+The framework runs float32 where the reference runs float64
 (`/root/reference/run/infer.py:76`). This pins the measured precision cost
 of the flagship forward/logpdf/gradient at a small mesh: same white noise,
 same observation, f64 computed under `jax.experimental.enable_x64` in the
@@ -83,7 +83,7 @@ def test_f32_matches_f64():
         lp64, g64, gxy64 = _eval(white32, obs_np)
 
     # measured at 16^3: rel dlogp 3e-8, grad cos 1-3e-8, grad rel 2e-4,
-    # gxy rms rel 4e-6 (64^3 table in BENCH_NOTES round 5)
+    # gxy rms rel 4e-6 (CPU)
     assert abs(lp32 - lp64) / abs(lp64) < 5e-6, (lp32, lp64)
     cos = float(g32 @ g64 / (np.linalg.norm(g32) * np.linalg.norm(g64)))
     assert cos > 1.0 - 1e-5, cos

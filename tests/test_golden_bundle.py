@@ -1,4 +1,4 @@
-"""Golden-bundle regression of the full forward model (VERDICT r2 next #6).
+"""Golden-bundle regression of the full forward model.
 
 A fixed white-noise realization is pushed through the PRODUCTION pipeline
 (init -> 2LPT / BullFrog-10 N-body -> 3rd-order Lagrangian bias -> RSD ->

@@ -97,8 +97,8 @@ def test_curved_sky_lightcone():
 def test_nbody_lightcone():
     """N-body light-cone (evolution='nbody', a_obs=None): beyond-reference —
     the reference asserts this out (model.py:770).  The shell-interpolated
-    N-body matches the LPT light-cone at low k (VERDICT r3 acceptance:
-    transfer ~ 1 well below k_nyq)."""
+    N-body matches the LPT light-cone at low k (transfer ~ 1 well below
+    k_nyq)."""
     from montecosmo_tpu.metrics import powtranscoh
 
     kw = dict(curved_sky=True, a_obs=None, box_center=(0.0, 0.0, 1500.0),
@@ -146,7 +146,7 @@ def test_png_fnl():
 
 
 def test_paint_window_matches_scatter_model():
-    """Full LPT+bias+RSD forward model: the scatter-free MXU paint path gives
+    """Full LPT+bias+RSD forward model: the scatter-free window paint path gives
     the same galaxy mesh and logpdf as the XLA scatter path."""
     kw = dict(evolution="lpt", lpt_order=2, paint_oversamp=2.0,
               ptcl_oversamp=1.0, evol_oversamp=2.0)
@@ -162,16 +162,14 @@ def test_paint_window_matches_scatter_model():
 
 
 def test_paint_auto_gate():
-    """auto enables the window path only when the clip bound covers the
-    displacement scale and the lattice divides the meshes."""
-    assert make(paint_method="auto").paint_lattice == (8, 8, 8)
-    # auto picks the smallest bound covering ~36 Mpc/h of displacement
-    m = make(paint_method="auto", cell_length=5.0)
-    assert m.paint_lattice == (8, 8, 8) and m.max_disp == 8
-    assert make(paint_method="auto", cell_length=40.0).max_disp == 4
-    # 36 Mpc/h at 1 Mpc/h cells needs a 36-cell window -> scatter fallback
-    assert make(paint_method="auto",
-                cell_length=1.0).paint_lattice is None
-    # non-integer refinement -> scatter fallback
-    assert make(paint_method="auto",
-                paint_oversamp=1.5, ptcl_oversamp=1.0).paint_lattice is None
+    """auto paints with the XLA scatter on one device and keeps a window
+    geometry for mesh contexts only when the lattice divides the meshes."""
+    m = make(paint_method="auto")
+    assert m.paint_lattice is None and m._sharded_window[1] == (8, 8, 8)
+    # the sharded window covers ~36 Mpc/h of displacement, at least 4 cells
+    assert make(paint_method="auto", cell_length=5.0)._sharded_window[0] == 8
+    assert make(paint_method="auto", cell_length=40.0)._sharded_window[0] == 4
+    assert make(paint_method="auto", cell_length=1.0)._sharded_window[0] == 36
+    # non-integer refinement -> no window geometry at all
+    assert make(paint_method="auto", paint_oversamp=1.5,
+                ptcl_oversamp=1.0)._sharded_window is None

@@ -5,7 +5,7 @@ matched initial conditions against an EXTERNAL implementation
 (`/root/reference/tests_old/test_fastpm.py:113-169` FastPM/pmesh meshes at
 matched white noise, `/root/reference/tests/test_register_ref.py:64-76`
 pre-made 576^3 products) — with the external solver written here from
-scratch (VERDICT r4 next#5).
+scratch.
 
 The naive pipeline below shares NOTHING with `montecosmo_tpu.ops`:
   * numpy-only, float64 end to end;

@@ -1,4 +1,4 @@
-"""paint_window parity: the scatter-free MXU paint must reproduce ops.paint
+"""paint_window parity: the scatter-free matmul paint must reproduce ops.paint
 bit-for-bit (up to f32 summation order) for lattice-ordered particles within
 the displacement bound, across orders, kernels, strides, and group tilings.
 

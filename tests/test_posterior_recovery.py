@@ -55,7 +55,7 @@ def test_posterior_recovers_fiducial(tmp_path):
         post[name] = x
         true_val = float(np.asarray(model.fiduc[name]))
         lo, hi = np.quantile(x, [0.005, 0.995])
-        # truth inside the ACTUAL 99% interval — no widening (VERDICT r4 #7)
+        # truth inside the ACTUAL 99% interval — no widening
         assert lo <= true_val <= hi, (
             f"{name}: truth {true_val} outside 99% interval [{lo}, {hi}]")
         assert np.isfinite(x).all()

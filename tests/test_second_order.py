@@ -1,7 +1,6 @@
 """Second-order external validation: checks tree-level PT cannot catch.
 
-Closes the round-3 judge's remaining blind spot (VERDICT r3 "missing #1"):
-a bug that preserves tree-level statistics — a 2LPT source coefficient or a
+Closes a blind spot of the tree-level tests: a bug that preserves tree-level statistics — a 2LPT source coefficient or a
 BullFrog kick coefficient off by a smooth factor — passes every test in
 `test_external_validation.py`.  Three independent second-order anchors:
 

@@ -1,8 +1,7 @@
 """Job-submission layer (run/submit.py) — hermetic script-generation tests.
 
 Parity: the reference's commented-out desipipe/NERSC TaskManager block
-(/root/reference/run/infer.py:20-41); here SLURM + Cloud TPU pod + local
-serialized queue.
+(/root/reference/run/infer.py:20-41); here SLURM + a local serialized queue.
 """
 import subprocess
 import sys
@@ -17,11 +16,11 @@ def test_slurm_script_single_node():
     s = submit.make_slurm_script(
         ["python", "run/infer.py", "--register", "r.h5", "--self-data"],
         job_name="ess64", time="02:00:00", nodes=1, qos="regular",
-        constraint="tpu", env_setup="source env/bin/activate")
+        constraint="gpu", env_setup="source env/bin/activate")
     assert "#SBATCH --job-name=ess64" in s
     assert "#SBATCH --time=02:00:00" in s
     assert "#SBATCH --qos=regular" in s
-    assert "#SBATCH --constraint=tpu" in s
+    assert "#SBATCH --constraint=gpu" in s
     assert "source env/bin/activate" in s
     # single node: no srun prefix
     assert "\npython run/infer.py --register r.h5 --self-data\n" in s
@@ -33,19 +32,6 @@ def test_slurm_script_multinode_uses_srun_and_distributed_fits():
         ["python", "run/infer.py", "--distributed"], nodes=4)
     assert "#SBATCH --nodes=4" in s
     assert "srun python run/infer.py --distributed" in s
-
-
-def test_tpuvm_command():
-    c = submit.make_tpuvm_command(
-        ["python", "run/infer.py", "--distributed"],
-        tpu="pod64", zone="us-central2-b", project="proj",
-        workdir="/repo", env_setup="export X=1")
-    assert c[:5] == ["gcloud", "compute", "tpus", "tpu-vm", "ssh"]
-    assert "pod64" in c and "--worker=all" in c
-    assert "--project=proj" in c
-    joined = c[-1]
-    assert joined.startswith("--command=cd /repo && export X=1 && ")
-    assert "python run/infer.py --distributed" in joined
 
 
 def test_local_queue_roundtrip(tmp_path):
